@@ -14,7 +14,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 OUT = os.path.join(ROOT, "docs", "api")
 
-# Doc generation never needs an accelerator; keep it off any TPU runtime.
+# Doc generation never needs an accelerator; keep it on the CPU.
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")

@@ -33,7 +33,7 @@ def detect_lines(image_path, scale=0.5):
 
 
 def main():
-    of.ensure_backend()
+    print("devices:", of.device_info())
     of.enable_compilation_cache()
     tmpl1 = detect_lines(f"{ASSETS}/ulaval_laboratoire_robotique_tmpl.png")
     tmpl2 = detect_lines(f"{ASSETS}/logo_innoptech.png")

@@ -41,7 +41,7 @@ def transform(lines, mat):
 
 
 def main():
-    of.ensure_backend()
+    print("devices:", of.device_info())
     of.enable_compilation_cache()
     base = star_template()
     scales = [0.6, 0.8, 1.0, 1.25, 1.5]

@@ -78,7 +78,7 @@ def multiview_6dof(scene0, templates, params, searcher, optimizer, lengths):
 
 
 def main(obj: str = "obj_01"):
-    of.ensure_backend()
+    print("devices:", of.device_info())
     of.enable_compilation_cache()
     t0 = time.perf_counter()
     tmpl_paths = sorted(glob.glob(f"{ASSETS}/{obj}/templates/*.tmpl"))

@@ -1,7 +1,7 @@
 // Native runtime components for openfdcm_tpu.
 //
 // The reference implements its entire runtime in C++ (header-only library +
-// pybind11 bindings).  The TPU port keeps the compute path in XLA, but the
+// pybind11 bindings).  This port keeps the compute path in XLA, but the
 // host-side runtime pieces that the reference implements natively are native
 // here too:
 //

@@ -1,7 +1,7 @@
-"""openfdcm_tpu: a TPU-native Fast Directional Chamfer Matching framework.
+"""openfdcm_tpu: Fast Directional Chamfer Matching in JAX.
 
 Re-implements the full capability surface of Innoptech/OpenFDCM with a
-JAX/XLA compute path designed TPU-first: the DT3 feature bank is one dense
+JAX/XLA compute path for accelerators: the DT3 feature bank is one dense
 ``[depth, H, W]`` tensor built with batched seed-min distance transforms and
 shear-cumsum line integrals; candidate generation, alignment, and the greedy
 1D optimizers all run as lockstep batched device code.
@@ -57,56 +57,42 @@ __all__ = [
     "match_many_async",
     "resumable_sweep", "SweepState", "MatcherService",
     "OpenFDCMError", "PointOutOfBound", "ImgProcError", "utils",
-    "enable_compilation_cache", "ensure_backend",
+    "enable_compilation_cache", "device_info",
 ]
 
 
-def ensure_backend(timeout_s: float = 240.0) -> str:
-    """Probe the accelerator backend in a SUBPROCESS and fall back to CPU
-    if it is unreachable.
+def device_info(require_accelerator: bool = False) -> dict:
+    """The devices JAX runs on: ``{"platform", "kind", "count"}`` of
+    ``jax.devices()`` (platform and ``device_kind`` of the first device).
 
-    A dead remote-attached TPU (e.g. a hung relay) blocks ``jax.devices()``
-    forever in-process; probing in a child process bounds the wait.  Call
-    BEFORE any other JAX use.  Returns the backend name ("tpu", "cpu", or
-    "cpu-fallback" when an accelerator was configured but unreachable).
+    ``require_accelerator``: raise ``RuntimeError`` when JAX finds only CPU
+    devices — a measurement or smoke run must fail there, never fall back.
     """
-    import subprocess
-    import sys as _sys
     import jax
-    # Already pinned to CPU in-process (tests, docs builds): nothing to
-    # probe — the subprocess would inherit the accelerator env and pay the
-    # full timeout on a dead relay.
-    if jax.config.jax_platforms == "cpu":
-        return "cpu"
-    try:
-        r = subprocess.run(
-            [_sys.executable, "-c",
-             "import jax; d = jax.devices(); "
-             "import sys; sys.exit(0 if d[0].platform != 'cpu' else 3)"],
-            timeout=timeout_s, capture_output=True)
-        if r.returncode == 0:
-            return "tpu"
-        if r.returncode == 3:
-            return "cpu"
-    except (subprocess.TimeoutExpired, OSError):
-        pass
-    jax.config.update("jax_platforms", "cpu")
-    return "cpu-fallback"
+    devs = jax.devices()
+    info = {"platform": devs[0].platform, "kind": devs[0].device_kind,
+            "count": len(devs)}
+    if require_accelerator and info["platform"] == "cpu":
+        raise RuntimeError(
+            f"no accelerator: JAX found only CPU devices ({info})")
+    return info
 
 
-def enable_compilation_cache(path: str | None = None,
-                             min_compile_secs: float = 0.5) -> None:
-    """Enable JAX's persistent compilation cache (huge win on
-    remote-attached TPUs where each XLA compile pays tunnel latency).
+def enable_compilation_cache(min_compile_secs: float = 0.5) -> str:
+    """Enable JAX's persistent compilation cache and return its directory.
 
-    ``path`` defaults to ``$OPENFDCM_TPU_CACHE`` if set, else a per-user
-    cache directory (``~/.cache/openfdcm_tpu/jax_cache``).
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already uses it and no
+    directory is set here.  Otherwise the cache is ``.jax_cache`` at the
+    root of the checkout: a fixed path, since the path is part of what
+    makes a later process find the entries again.
     """
     import os
     import jax
-    if path is None:
-        path = os.environ.get("OPENFDCM_TPU_CACHE") or os.path.join(
-            os.environ.get("XDG_CACHE_HOME")
-            or os.path.expanduser("~/.cache"), "openfdcm_tpu", "jax_cache")
-    jax.config.update("jax_compilation_cache_dir", path)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", min_compile_secs)
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), ".jax_cache")
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                      min_compile_secs)
+    return path

@@ -10,10 +10,10 @@ reference's pybind11 module (``modules/python/src/matching.cpp:62-307``,
 Line arrays use the reference's ``4 x N`` column layout at this boundary
 (both layouts are accepted on input; ``read`` returns ``4 x N``).
 
-The ``ThreadPool`` exists for API parity only: on TPU, the reference's two
+The ``ThreadPool`` exists for API parity only: here the reference's two
 thread fan-outs (per-angle DT build, per-candidate optimize — ``dt3cpu.h:
 196-224``, ``defaultoptimize.cpp:72-90``) are replaced by batched XLA device
-code, and multi-chip scaling uses ``jax.sharding`` meshes instead.
+code, and multi-device scaling uses ``jax.sharding`` meshes instead.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ distance = Distance
 class ThreadPool:
     """API-parity stub for ``BS::thread_pool`` (``matching.cpp:86-101``).
 
-    The TPU backend parallelizes inside XLA; the pool carries no work."""
+    The device parallelizes inside XLA; the pool carries no work."""
 
     def __init__(self, num_threads: int | None = None):
         self._num_threads = int(num_threads) if num_threads else 1

@@ -1,10 +1,10 @@
-"""Exact distance transforms of line sets, TPU-first.
+"""Exact distance transforms of line sets.
 
 The reference computes the DT with sequential separable passes
 (Felzenszwalb–Huttenlocher lower envelope for L2/L2², two-pass min
 propagation for L1 — ``core/imgproc.h:86-194``).  Both are *exact* EDTs of
-the rasterized seed-pixel set, so on TPU we compute the mathematically
-identical quantity with two separable, branch-free passes:
+the rasterized seed-pixel set, so here we compute the mathematically
+identical quantity with two separable passes:
 
 1. **Column pass** — vertical nearest-seed distance per column:
    ``g[y, x] = min over seed rows y' in column x of |y - y'|``.
@@ -15,8 +15,10 @@ identical quantity with two separable, branch-free passes:
 2. **Row pass** — combine columns under the metric:
    * L1:    ``d[y, x] = min_x' (g[y, x'] + |x - x'|)`` — same cummin trick.
    * L2²:   ``d[y, x] = min_x' (g[y, x']² + (x - x')²)`` — a min-plus
-     convolution with a quadratic kernel, evaluated as a streaming scan over
-     source-column chunks (no O(W²) materialization).
+     convolution with a quadratic kernel, chosen per compiled platform: on
+     the GPU a Pallas kernel that scans only the source chunks inside each
+     tile's L1 band that hold a seed (``ops/minplus_gpu.py``); elsewhere a
+     streaming scan over source-column chunks (no O(W²) materialization).
    * L2:    sqrt of the L2² result (as the reference, ``imgproc.h:191-192``).
 
 Coordinates are integers < 2^11 in practice, so all intermediate squared
@@ -38,7 +40,7 @@ from .types import Distance, F32_MAX
 
 # Row-pass source columns are consumed in chunks of this many columns.
 # Small chunks serve two purposes on XLA:CPU (this path is the CPU/test
-# backend; TPU canvases take the banded Pallas kernel): (a) the fused
+# backend; the GPU takes the banded Pallas kernel): (a) the fused
 # (rows x W x chunk) broadcast-reduce stays inside the cache hierarchy —
 # measured 15-25x vs chunk=128 even with every chunk active — and (b) the
 # per-chunk all-infinite skip (see _minplus_quadratic_rows) gets fine
@@ -47,6 +49,8 @@ _SRC_CHUNK = 8
 # Rows are processed in blocks (flattening any leading batch axes into the
 # row axis) so peak memory stays ~row_block * W * _SRC_CHUNK floats.
 _ROW_BLOCK = 64
+# Rows per broadcast-reduce of the dense form.
+_DENSE_ROW_BLOCK = 512
 
 
 def _nearest_1d_l1(f: jax.Array) -> jax.Array:
@@ -98,6 +102,40 @@ def _minplus_quadratic_rows(g: jax.Array) -> jax.Array:
     return out
 
 
+def _minplus_dense_rows(rows: jax.Array) -> jax.Array:
+    """Dense ``out[r, x] = min_s (rows[r, s] + (x - s)²)`` over ``(R, W)``:
+    one broadcast-reduce per block of ``_DENSE_ROW_BLOCK`` rows, no pruning
+    and no data-dependent control flow."""
+    r, w = rows.shape
+    xs = jnp.arange(w, dtype=jnp.float32)
+    d2 = (xs[:, None] - xs[None, :]) ** 2                  # (src, dst)
+    pad = (-r) % _DENSE_ROW_BLOCK
+    blocks = jnp.pad(rows, ((0, pad), (0, 0)), constant_values=jnp.inf)
+    blocks = blocks.reshape(-1, _DENSE_ROW_BLOCK, w)
+    out = jax.lax.map(lambda b: jnp.min(b[:, :, None] + d2[None], axis=1),
+                      blocks)
+    return out.reshape(-1, w)[:r]
+
+
+def _minplus_chunked_rows(rows: jax.Array) -> jax.Array:
+    """:func:`_minplus_quadratic_rows` over ``(R, W)`` in row blocks."""
+    r, w = rows.shape
+    pad = (-r) % _ROW_BLOCK
+    rows_p = jnp.pad(rows, ((0, pad), (0, 0)), constant_values=jnp.inf)
+    out = jax.lax.map(_minplus_quadratic_rows,
+                      rows_p.reshape(-1, _ROW_BLOCK, w))
+    return out.reshape(-1, w)[:r]
+
+
+def _minplus_banded_gpu(rows: jax.Array, g: jax.Array) -> jax.Array:
+    from ..ops.minplus_gpu import minplus_rows_banded
+    return minplus_rows_banded(rows, _nearest_1d_l1(g).reshape(rows.shape))
+
+
+# The row-pass form each platform compiles (``lax.platform_dependent``).
+_gpu_rows = _minplus_banded_gpu
+
+
 def row_pass(g: jax.Array, *, metric: Distance) -> jax.Array:
     """Horizontal combine of the column-pass distances ``g`` ``(..., H, W)``
     under ``metric`` — per-row math only (no cross-row dependence), so it is
@@ -114,22 +152,10 @@ def row_pass(g: jax.Array, *, metric: Distance) -> jax.Array:
     # L2 / L2^2: row-wise min-plus with a quadratic kernel over g².
     g2 = jnp.minimum(g * g, jnp.inf)
     rows = g2.reshape(-1, w)
-    r_total = rows.shape[0]
-    if _use_banded_rows(w):
-        # Pallas kernel banded by the L1 distance bound (exact: the winning
-        # source is within d_L2 <= d_L1 of its pixel).
-        from ..ops.minplus_kernel import minplus_rows_banded, RB
-        l1 = _nearest_1d_l1(g).reshape(-1, w)
-        pad = (-r_total) % RB
-        rows_p = jnp.pad(rows, ((0, pad), (0, 0)), constant_values=jnp.inf)
-        l1_p = jnp.pad(l1, ((0, pad), (0, 0)), constant_values=0.0)
-        out = minplus_rows_banded(rows_p, l1_p)
-    else:
-        pad = (-r_total) % _ROW_BLOCK
-        rows_p = jnp.pad(rows, ((0, pad), (0, 0)), constant_values=jnp.inf)
-        blocks = rows_p.reshape(-1, _ROW_BLOCK, w)
-        out = jax.lax.map(_minplus_quadratic_rows, blocks)
-    out = out.reshape(-1, w)[:r_total].reshape(*lead_hw, w)
+    out = jax.lax.platform_dependent(
+        rows, g, cuda=lambda r, gg: _gpu_rows(r, gg),
+        default=lambda r, gg: _minplus_chunked_rows(r))
+    out = out.reshape(*lead_hw, w)
     out = jnp.minimum(out, F32_MAX)
     if metric == Distance.L2:
         out = jnp.where(out >= F32_MAX, F32_MAX, jnp.sqrt(out))
@@ -142,24 +168,13 @@ def dt_from_indicator(ind: jax.Array, *, metric: Distance) -> jax.Array:
 
     ``ind`` holds 0.0 at seed pixels and ``F32_MAX`` (or +inf) elsewhere.
     """
-    # Column pass: vertical distance along y (axis -2).
-    g = jnp.swapaxes(_nearest_1d_l1(jnp.swapaxes(ind, -1, -2)), -1, -2)
-    return row_pass(g, metric=metric)
+    return row_pass(column_pass(ind), metric=metric)
 
 
-def _use_banded_rows(w: int) -> bool:
-    """Gate for the Pallas banded row pass: TPU backend (or forced), canvas
-    aligned to its tiles."""
-    import os
-    flag = os.environ.get("OPENFDCM_TPU_BANDED", "auto")
-    if flag == "0":
-        return False
-    if w % 128 != 0 or w < 256:
-        return False
-    if flag == "1":
-        return True
-    import jax as _jax
-    return _jax.default_backend() == "tpu"
+def column_pass(ind: jax.Array) -> jax.Array:
+    """Vertical nearest-seed distance along y (axis -2) of a seed
+    indicator ``(..., H, W)`` (0 at seeds, ``F32_MAX``/inf elsewhere)."""
+    return jnp.swapaxes(_nearest_1d_l1(jnp.swapaxes(ind, -1, -2)), -1, -2)
 
 
 def indicator_from_points(points: jax.Array, mask: jax.Array, height: int,

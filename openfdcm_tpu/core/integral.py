@@ -5,10 +5,10 @@ accumulation (``core/imgproc.h:38-84``): sweeping along the major axis, each
 swept column adds the previously swept column shifted by
 ``delta_i = round(i*r) - round((i-1)*r)`` rows (always in {-1, 0, +1}).
 
-TPU formulation: a ``lax.scan`` over sweep positions with an ``(H,)`` carry —
-the per-step shift is one of three static shift patterns selected by
-``delta``, so each step is a handful of VPU ops with no gathers.  Slices
-sharing a sweep orientation run in one vmapped scan.
+Accelerator formulation: a ``lax.scan`` over sweep positions with an
+``(H,)`` carry — the per-step shift is one of three static shift patterns
+selected by ``delta``, so each step is a handful of elementwise ops with no
+gathers.  Slices sharing a sweep orientation run in one vmapped scan.
 
 Physical canvases may be padded beyond the logical region; sweep positions
 are assigned so the logical region keeps reference-exact indices (padded
@@ -82,9 +82,9 @@ def _sweep_scan(img: jax.Array, deltas_by_col: jax.Array, flip: bool) -> jax.Arr
 
     The scan is UNROLLED ``_SWEEP_UNROLL`` columns per step: the per-step
     math is a handful of ops on an ``(H,)`` carry, so a W-step scan is
-    scan-overhead-bound on TPU (~27 ms of a 10-scene pose build); the
-    unrolled inner loop keeps the exact sequential accumulation order
-    (bit-identical results) at 1/8 the step count.
+    bound by per-step loop overhead; the unrolled inner loop keeps the
+    exact sequential accumulation order (bit-identical results) at 1/8 the
+    step count.
     """
     cols = img.T  # (W, H)
     w = cols.shape[0]
@@ -143,27 +143,10 @@ def _group_geometry(angles, phys_n_by_major):
     return groups
 
 
-def _integral_kernel_on() -> bool:
-    """Whether the Pallas sweep-scan kernel handles the per-group scans.
-
-    ``OPENFDCM_TPU_INTEGRAL`` is a COMPILE-TIME flag (read at trace time,
-    like ``OPENFDCM_TPU_KERNEL``): "0" never, "1" always (interpret mode
-    off-TPU), default on the TPU backend only.  Results are bit-identical
-    either way (``tests/test_integral_kernel.py``)."""
-    import os
-    flag = os.environ.get("OPENFDCM_TPU_INTEGRAL", "auto")
-    if flag == "0":
-        return False
-    if flag == "1":
-        return True
-    return jax.default_backend() == "tpu"
-
-
 @partial(jax.jit, static_argnames=("angles",))
 def _line_integral_stack(imgs: jax.Array, logical_hw: jax.Array, *, angles):
     d, ph, pw = imgs.shape
     groups = _group_geometry(angles, {True: pw, False: ph})
-    use_kernel = _integral_kernel_on()
     out = [None] * d
     for x_major, idxs, flips, dels in groups:
         n_log = logical_hw[1] if x_major else logical_hw[0]
@@ -185,13 +168,7 @@ def _line_integral_stack(imgs: jax.Array, logical_hw: jax.Array, *, angles):
                                  jnp.take(dsub, pidx, axis=1), 0)
             else:
                 dcol = dsub
-            from ..ops import integral_kernel as ik
-            if use_kernel and ik.supported(group.shape[1], group.shape[2]):
-                res = ik.sweep_scan_tpu(
-                    group, dcol, flip_val,
-                    interpret=jax.default_backend() != "tpu")
-            else:
-                res = jax.vmap(partial(_sweep_scan, flip=flip_val))(group, dcol)
+            res = jax.vmap(partial(_sweep_scan, flip=flip_val))(group, dcol)
             if not x_major:
                 res = jnp.swapaxes(res, 1, 2)
             for k, i in enumerate(sub_idxs):

@@ -1,6 +1,6 @@
 """Vectorized line clipping and rasterization.
 
-TPU-first reformulation of the reference's per-line loops
+Vectorized reformulation of the reference's per-line loops
 (``core/drawing.h:57-102``, ``core/src/drawing.cpp:29-112``):
 
 * ``rasterize_vector`` — elementwise, batched.

@@ -5,7 +5,7 @@ every (template line, scene line) combination from the search strategy,
 generate both aligning transforms, then run ONE batched optimize over all
 candidates and turn finite results into matches.
 
-TPU redesign: candidate generation is closed-form and fully batched — the
+Accelerator redesign: candidate generation is closed-form and fully batched — the
 aligned-template tensor ``(C, Lmax, 4)`` is built on device in one shot, and
 the optimizer scores every candidate in lockstep.  Candidate counts are
 padded to buckets so repeated searches hit the jit cache.
@@ -129,19 +129,21 @@ def _search_core(tmpl_lines, tmpl_mask, tmpl_of_cand, cand_tmpl_line,
     Returns ``(scores (C,), transforms (C,2,3), valid (C,))`` with
     ``C = 2 * P`` (both alignment polarities, reference emplace order
     ``defaultmatch.cpp:62-70``)."""
-    aligned, transforms, align_vecs = _make_candidates(
-        tmpl_lines, tmpl_mask, tmpl_of_cand, cand_tmpl_line,
-        cand_scene_line, scene, lmax)
-    p = tmpl_of_cand.shape[0]
-    c = 2 * p
-    cand_lines = aligned.reshape(c, lmax, 4)
-    cand_mask = jnp.repeat(tmpl_mask[tmpl_of_cand], 2, axis=0)
-    cand_align = jnp.repeat(align_vecs, 2, axis=0)
+    with jax.named_scope("candidates"):
+        aligned, transforms, align_vecs = _make_candidates(
+            tmpl_lines, tmpl_mask, tmpl_of_cand, cand_tmpl_line,
+            cand_scene_line, scene, lmax)
+        p = tmpl_of_cand.shape[0]
+        c = 2 * p
+        cand_lines = aligned.reshape(c, lmax, 4)
+        cand_mask = jnp.repeat(tmpl_mask[tmpl_of_cand], 2, axis=0)
+        cand_align = jnp.repeat(align_vecs, 2, axis=0)
 
-    scores, translations, valid = opt.optimize_candidates(
-        dt3_flat, angles, scene_tr, hw, feature_size,
-        cand_lines, cand_mask, cand_align,
-        mode=mode, window=window, dense_steps=dense_steps)
+    with jax.named_scope("walk"):
+        scores, translations, valid = opt.optimize_candidates(
+            dt3_flat, angles, scene_tr, hw, feature_size,
+            cand_lines, cand_mask, cand_align,
+            mode=mode, window=window, dense_steps=dense_steps)
 
     # combine(translation, transform): translation applied after
     # (defaultmatch.cpp:83-84).
@@ -155,43 +157,13 @@ _search_device = partial(jax.jit, static_argnames=(
 
 
 @partial(jax.jit, static_argnames=("lmax", "hw", "mode", "window",
-                                   "dense_steps", "use_kernel", "items_cap"))
+                                   "dense_steps"))
 def _search_device_batch(tmpl_lines, tmpl_mask, pair_t, pair_tl, pair_sl,
                          scenes, dt3_flat, angles, scene_tr, feature_size,
-                         *, lmax, hw, mode, window, dense_steps,
-                         use_kernel=False, items_cap=None, cand_ok=None):
+                         *, lmax, hw, mode, window, dense_steps):
     """Scene-batched search: one dispatch scores a whole scene batch.
     Leading axis S on ``pair_*``, ``scenes``, ``dt3_flat``, ``scene_tr``,
-    ``feature_size``; the template bank and angles are shared.
-
-    ``use_kernel``: route the optimizer through the Pallas window kernel
-    (:mod:`openfdcm_tpu.matching.optimize_kernel`).
-    ``cand_ok``: optional ``(S, 2P)`` caller-side candidate mask folded
-    into validity (masked candidates skip scoring work entirely)."""
-    if use_kernel:
-        from .optimize_kernel import optimize_candidates_batch_kernel
-        depth = angles.shape[0]
-        s_count = pair_t.shape[0]
-        dt3 = dt3_flat.reshape(s_count, depth, hw[0], hw[1])
-
-        def gen(pt, ptl, psl, sc):
-            aligned, transforms, align_vecs = _make_candidates(
-                tmpl_lines, tmpl_mask, pt, ptl, psl, sc, lmax)
-            p = pt.shape[0]
-            cand_lines = aligned.reshape(2 * p, lmax, 4)
-            cand_mask = jnp.repeat(tmpl_mask[pt], 2, axis=0)
-            cand_align = jnp.repeat(align_vecs, 2, axis=0)
-            return cand_lines, cand_mask, cand_align, \
-                transforms.reshape(2 * p, 2, 3)
-
-        cl, cm, ca, mats = jax.vmap(gen)(pair_t, pair_tl, pair_sl, scenes)
-        scores, translations, valid = optimize_candidates_batch_kernel(
-            dt3, angles, scene_tr, feature_size, cl, cm, ca,
-            mode=mode, window=max(window, 1), items_cap=items_cap,
-            cand_ok=cand_ok)
-        mats = mats.at[..., 2].add(translations)
-        return scores, mats, valid
-
+    ``feature_size``; the template bank and angles are shared."""
     def one(pt, ptl, psl, sc, dt, tr, fs):
         return _search_core(tmpl_lines, tmpl_mask, pt, ptl, psl, sc, dt,
                             angles, tr, fs, lmax=lmax, hw=hw, mode=mode,
@@ -201,13 +173,11 @@ def _search_device_batch(tmpl_lines, tmpl_mask, pair_t, pair_tl, pair_sl,
 
 
 @partial(jax.jit, static_argnames=("lmax", "hw", "mode", "window",
-                                   "dense_steps", "k", "use_kernel",
-                                   "items_cap"))
+                                   "dense_steps", "k"))
 def _search_device_batch_topk(tmpl_lines, tmpl_mask, pair_t, pair_tl, pair_sl,
                               scenes, dt3_flat, angles, scene_tr, feature_size,
                               lengths, tau, pair_valid, *, lmax, hw, mode,
-                              window, dense_steps, k, use_kernel=False,
-                              items_cap=None):
+                              window, dense_steps, k):
     """Batched search + device-side penalize + per-scene top-k.
 
     Returns ``(scores_k (S,k), mats_k (S,k,2,3), cand_idx_k (S,k),
@@ -218,8 +188,7 @@ def _search_device_batch_topk(tmpl_lines, tmpl_mask, pair_t, pair_tl, pair_sl,
     scores, mats, valid = _search_device_batch(
         tmpl_lines, tmpl_mask, pair_t, pair_tl, pair_sl, scenes, dt3_flat,
         angles, scene_tr, feature_size, lmax=lmax, hw=hw, mode=mode,
-        window=window, dense_steps=dense_steps, use_kernel=use_kernel,
-        items_cap=items_cap)
+        window=window, dense_steps=dense_steps)
     tmpl_of_cand = jnp.repeat(pair_t, 2, axis=1)          # (S, 2P)
     pen = jnp.where(jnp.isnan(tau), 1.0,
                     jnp.power(jnp.maximum(lengths[tmpl_of_cand], 1e-6), tau))
@@ -233,14 +202,12 @@ def _search_device_batch_topk(tmpl_lines, tmpl_mask, pair_t, pair_tl, pair_sl,
 
 
 @partial(jax.jit, static_argnames=("lmax", "hw", "mode", "window",
-                                   "dense_steps", "k", "ms", "use_kernel",
-                                   "items_cap"))
+                                   "dense_steps", "k", "ms"))
 def _search_device_batch_topk_genpairs(tmpl_lines, tmpl_mask, top_vals, ord_t,
                                        rank_ok, scenes, slen, svalid,
                                        dt3_flat, angles, scene_tr,
                                        feature_size, lengths, tau, *, lmax,
-                                       hw, mode, window, dense_steps, k, ms,
-                                       use_kernel=False, items_cap=None):
+                                       hw, mode, window, dense_steps, k, ms):
     """Top-k search with pair generation ON DEVICE: scene lines plus their
     host-computed lengths/validity are uploaded, and the
     (template, scene-line) windows are computed where the data lives
@@ -267,7 +234,8 @@ def _search_device_batch_topk_genpairs(tmpl_lines, tmpl_mask, top_vals, ord_t,
         sl, wok = device_pairs(ln, va, top_vals, rank_ok, ms)
         return sl.reshape(-1), wok.reshape(-1)
 
-    sl, wok = jax.vmap(pairs_one)(slen, svalid)              # (S, P)
+    with jax.named_scope("pairs"):
+        sl, wok = jax.vmap(pairs_one)(slen, svalid)          # (S, P)
     pair_t = jnp.broadcast_to(
         jnp.repeat(jnp.arange(t_count, dtype=jnp.int32), mt * ms)[None],
         (s_count, p))
@@ -276,20 +244,18 @@ def _search_device_batch_topk_genpairs(tmpl_lines, tmpl_mask, top_vals, ord_t,
         (s_count, p))
 
     # Invalid windows (rank_ok false / beyond the valid scene lines) are
-    # masked at top-k anyway; folding them into candidate validity keeps
-    # them out of the kernel item stream and straggler passes, and makes
-    # the host-computed items_cap exact (pipeline._genpairs_items).
+    # masked at top-k.
     scores, mats, valid = _search_device_batch(
         tmpl_lines, tmpl_mask, pair_t, pair_tl, sl, scenes, dt3_flat,
         angles, scene_tr, feature_size, lmax=lmax, hw=hw, mode=mode,
-        window=window, dense_steps=dense_steps, use_kernel=use_kernel,
-        items_cap=items_cap, cand_ok=jnp.repeat(wok, 2, axis=1))
-    tof = jnp.repeat(pair_t, 2, axis=1)
-    pen = jnp.where(jnp.isnan(tau), 1.0,
-                    jnp.power(jnp.maximum(lengths[tof], 1e-6), tau))
-    masked = jnp.where(valid & jnp.repeat(wok, 2, axis=1),
-                       scores / pen, jnp.inf)
-    neg_top, idx = jax.lax.top_k(-masked, k)                 # ties -> low idx
+        window=window, dense_steps=dense_steps)
+    with jax.named_scope("penalize_topk"):
+        tof = jnp.repeat(pair_t, 2, axis=1)
+        pen = jnp.where(jnp.isnan(tau), 1.0,
+                        jnp.power(jnp.maximum(lengths[tof], 1e-6), tau))
+        masked = jnp.where(valid & jnp.repeat(wok, 2, axis=1),
+                           scores / pen, jnp.inf)
+        neg_top, idx = jax.lax.top_k(-masked, k)             # ties -> low idx
     return (-neg_top,
             jnp.take_along_axis(mats, idx[..., None, None], axis=1),
             jnp.take_along_axis(tof, idx, axis=1),
@@ -367,7 +333,6 @@ def _search_device_batch_topk_sharded(mesh, tmpl_lines, tmpl_mask, pair_t,
                                       angles, scene_tr, feature_size, lengths,
                                       tau, pair_valid, *, lmax, hw, mode,
                                       window, dense_steps, k,
-                                      use_kernel=False, items_cap=None,
                                       scene_axis="scene", cand_axis="cand"):
     """Mesh-sharded search + device-side penalize + per-scene top-k.
 
@@ -381,8 +346,7 @@ def _search_device_batch_topk_sharded(mesh, tmpl_lines, tmpl_mask, pair_t,
     fn = _topk_sharded_cached(
         mesh, scene_axis, cand_axis,
         (("lmax", lmax), ("hw", hw), ("mode", mode), ("window", window),
-         ("dense_steps", dense_steps), ("k", k), ("use_kernel", use_kernel),
-         ("items_cap", items_cap)))
+         ("dense_steps", dense_steps), ("k", k)))
     return fn(tmpl_lines, tmpl_mask, pair_t, pair_tl, pair_sl, scenes,
               dt3_flat, angles, scene_tr, feature_size, lengths,
               jnp.float32(tau), pair_valid)
@@ -437,19 +401,14 @@ def _topk_sharded_cached(mesh, scene_axis, cand_axis, statics):
 def _search_device_batch_sharded(mesh, tmpl_lines, tmpl_mask, pair_t, pair_tl,
                                  pair_sl, scenes, dt3_flat, angles, scene_tr,
                                  feature_size, *, lmax, hw, mode, window,
-                                 dense_steps, axis="scene", use_kernel=False,
-                                 items_cap=None):
+                                 dense_steps, axis="scene"):
     """Scene-data-parallel batched search: the scene axis is sharded over a
     mesh; the template bank and angles are replicated.  Per-scene work is
-    independent, so there is no cross-device traffic inside the search.
-
-    ``use_kernel``: each device runs the Pallas window-kernel optimizer on
-    its local scene shard (``items_cap`` is the per-device item bound)."""
+    independent, so there is no cross-device traffic inside the search."""
     fn = _batch_sharded_cached(
         mesh, axis,
         (("lmax", lmax), ("hw", hw), ("mode", mode), ("window", window),
-         ("dense_steps", dense_steps), ("use_kernel", use_kernel),
-         ("items_cap", items_cap)))
+         ("dense_steps", dense_steps)))
     return fn(tmpl_lines, tmpl_mask, pair_t, pair_tl, pair_sl, scenes,
               dt3_flat, angles, scene_tr, feature_size)
 
@@ -460,13 +419,8 @@ def _batch_sharded_cached(mesh, axis, statics):
     from jax.sharding import PartitionSpec as P
     from jax import shard_map
     kw = dict(statics)
-    use_kernel = kw["use_kernel"]
 
     def local(tl, tm, pt, ptl, psl, sc, dt, ang, tr, fs):
-        if use_kernel:
-            return _search_device_batch(tl, tm, pt, ptl, psl, sc, dt, ang,
-                                        tr, fs, **kw)
-
         def one(pt1, ptl1, psl1, sc1, dt1, tr1, fs1):
             return _search_core(tl, tm, pt1, ptl1, psl1, sc1, dt1, ang,
                                 tr1, fs1, lmax=kw["lmax"], hw=kw["hw"],
@@ -540,31 +494,14 @@ def search(matcher, searcher, optimizer, featuremap: fm.Dt3Featuremap,
         mats[:, :, 2] += np.asarray(translations)
         mats = jnp.asarray(mats)
     else:
-        from .optimize_kernel import kernel_supported, cap_bucket
-        if kernel_supported((1, d, ph, pw), mode):
-            counts_arr = np.asarray([t.shape[0] for t in bank.host], np.int64)
-            n_items = int(2 * counts_arr[pairs_padded[:, 0]].sum()) + 1
-            scores, mats, valid = _search_device_batch(
-                bank.lines, bank.mask,
-                jnp.asarray(pairs_padded[None, :, 0]),
-                jnp.asarray(pairs_padded[None, :, 1]),
-                jnp.asarray(pairs_padded[None, :, 2]),
-                jnp.asarray(scene_padded)[None],
-                featuremap.dt3.reshape(1, -1), featuremap.angles,
-                featuremap.scene_translation[None], feature_size[None],
-                lmax=lmax, hw=(ph, pw), mode=mode, window=max(window, 1),
-                dense_steps=dense_steps, use_kernel=True,
-                items_cap=cap_bucket(n_items))
-            scores, mats, valid = scores[0], mats[0], valid[0]
-        else:
-            scores, mats, valid = _search_device(
-                bank.lines, bank.mask,
-                jnp.asarray(pairs_padded[:, 0]), jnp.asarray(pairs_padded[:, 1]),
-                jnp.asarray(pairs_padded[:, 2]), jnp.asarray(scene_padded),
-                featuremap.dt3.reshape(-1), featuremap.angles,
-                featuremap.scene_translation, feature_size,
-                lmax=lmax, hw=(ph, pw), mode=mode, window=max(window, 1),
-                dense_steps=dense_steps)
+        scores, mats, valid = _search_device(
+            bank.lines, bank.mask,
+            jnp.asarray(pairs_padded[:, 0]), jnp.asarray(pairs_padded[:, 1]),
+            jnp.asarray(pairs_padded[:, 2]), jnp.asarray(scene_padded),
+            featuremap.dt3.reshape(-1), featuremap.angles,
+            featuremap.scene_translation, feature_size,
+            lmax=lmax, hw=(ph, pw), mode=mode, window=max(window, 1),
+            dense_steps=dense_steps)
 
     scores = np.asarray(scores)
     valid = np.asarray(valid)

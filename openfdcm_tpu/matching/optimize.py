@@ -5,14 +5,14 @@ The reference ships three sequential greedy line-searches
 from the aligned position in unit steps of the rasterized alignment vector,
 break on the first worsening score, keep the best visited.
 
-TPU redesign: all candidates advance in lockstep through *windows* of steps
+Accelerator redesign: all candidates advance in lockstep through *windows* of steps
 evaluated as one batched gather; the per-candidate break/keep logic becomes
 vectorized mask algebra on the window scores (the visited set of the greedy
 walk is a computable prefix — see ``_chain_prefix``).  This reproduces the
 reference's visited sets, scores, and first-minimum tie-breaking exactly,
 while evaluating thousands of candidates per step instead of one.
 
-A fourth, TPU-native ``DenseOptimize`` evaluates the *entire* legal range and
+A fourth strategy, ``DenseOptimize``, evaluates the *entire* legal range and
 takes the global argmin — a strict superset of the greedy walks (scores can
 only improve); use it when reference-identical rankings are not required.
 """
@@ -30,8 +30,8 @@ from ..core import rasterize as ras
 from . import featuremap as fm
 
 # np scalar, not jnp: a module-level jnp constant would initialize the
-# accelerator backend at import time (hanging imports when a remote-attached
-# chip is unreachable); np.float32 promotes identically inside jnp ops.
+# accelerator backend at import time (importing must not touch a device);
+# np.float32 promotes identically inside jnp ops.
 _BIG = np.float32(3.0e38)
 
 
@@ -75,7 +75,8 @@ class BatchOptimize:
 
 @dataclasses.dataclass(frozen=True)
 class DenseOptimize:
-    """TPU-native: global argmin over the full legal translation range."""
+    """Global argmin over the full legal translation range (not part of the
+    reference's surface)."""
     max_steps: int | None = None  # None: bound by the canvas extent
 
 
@@ -96,8 +97,8 @@ def _window_scores(dt3_flat, hw, slice_idx, endpoints, line_mask, scene_tr,
     reference's float op order (``dt3cpu.cpp:153``)."""
     mult = (t0[:, None] + jnp.arange(count, dtype=jnp.float32)[None, :]) * sign  # (C,K)
     # launder: the m*rast product must round before the add (geometry
-    # _round_launder) or XLA:CPU FMA-contracts it, skewing probe pixels
-    # vs the TPU kernel path by 1 ulp
+    # _round_launder) or the backend FMA-contracts it, skewing probe
+    # pixels by 1 ulp between backends
     trans = scene_tr + geo._pmul(mult[..., None], rast[:, None, :])              # (C,K,2)
     return fm.evaluate_batched(dt3_flat, hw, slice_idx, endpoints, line_mask,
                                trans, take_fn=take_fn)

@@ -216,8 +216,10 @@ def device_pairs(slen, valid_s, top_vals, rank_ok, ms: int):
     weight on the interconnect; here only per-line lengths + validity go
     up (computed host-side by :func:`scene_length_mask` so the f32 values
     are bit-identical to ``bank_pairs``) and the windows are computed
-    where the data lives.  Gathers are expressed as one-hot matmuls (MXU)
-    because TPU scalar table-gathers are slow.
+    where the data lives.  Table lookups are plain gathers: a
+    matmul-expressed gather would run at the backend's default matmul
+    precision (TF32 on a GPU), rounding the lengths ``closer`` compares and
+    the indices above 2048.
 
     ``slen (N,)`` f32 line lengths; ``valid_s (N,)`` bool (padding and
     annulus-filtered lines False); ``top_vals (T, mt)`` f32 lengths of
@@ -245,12 +247,9 @@ def device_pairs(slen, valid_s, top_vals, rank_ok, ms: int):
     i = jnp.sum((ssl[None, :] > v[:, None]) & (pos < n_eff)[None, :],
                 axis=1)                                   # count > v
 
-    # one-hot gathers of ssl at i and i-1 (MXU instead of scalar gather)
-    oh_i = (pos[None, :] == jnp.clip(i, 0, n - 1)[:, None]).astype(jnp.float32)
-    oh_p = (pos[None, :] == jnp.clip(i - 1, 0, n - 1)[:, None]).astype(jnp.float32)
     ssl_f = jnp.where(jnp.isfinite(ssl), ssl, 0.0)
-    at_i = oh_i @ ssl_f
-    at_p = oh_p @ ssl_f
+    at_i = ssl_f[jnp.clip(i, 0, n - 1)]
+    at_p = ssl_f[jnp.clip(i - 1, 0, n - 1)]
     closer = jnp.abs(v - at_i) < jnp.abs(v - at_p)
     c = jnp.where(i == 0, 0,
                   jnp.where(i >= n_eff, n_eff - 1,
@@ -260,11 +259,10 @@ def device_pairs(slen, valid_s, top_vals, rank_ok, ms: int):
     end = jnp.minimum(begin + ms, n_eff)
     begin = jnp.maximum(0, end - ms)
 
-    # windows of order_s: R[p, j] = order_s[p + j]; sl = onehot(begin) @ R
-    osf = order_s.astype(jnp.float32)
-    r = jnp.stack([jnp.roll(osf, -j) for j in range(ms)], axis=1)  # (N, ms)
-    oh_b = (pos[None, :] == begin[:, None]).astype(jnp.float32)
-    sl = jnp.round(oh_b @ r).astype(jnp.int32)            # (T*mt, ms)
+    # windows of order_s: sl[p, j] = order_s[begin[p] + j] (wrapping like
+    # the slots beyond ``end``, which win_ok masks)
+    slot = (begin[:, None] + jnp.arange(ms)[None, :]) % n
+    sl = order_s[slot].astype(jnp.int32)                  # (T*mt, ms)
     win_ok = (begin[:, None] + jnp.arange(ms)[None, :]) < end[:, None]
     win_ok &= rank_ok.reshape(-1)[:, None] & (n_eff > 0)
     return (sl.reshape(t_count, mt, ms),

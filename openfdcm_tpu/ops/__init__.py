@@ -1,10 +1,6 @@
-"""Custom TPU kernels (Pallas).
+"""Hand-written accelerator kernels (Pallas).
 
-Currently empty by design: every hot op lowered well through XLA after
-restructuring (separable DT, dense-window scoring with big-trailing-axis
-gathers), and the one kernel that looked promising — per-ray patch-DMA
-scoring — was prototyped and measured to be DMA-issue-rate bound
-(``scripts/proto_patch_kernel.py``, ROADMAP.md).  Future kernels that beat
-the XLA baselines (slice-resident scoring, O(W) Felzenszwalb–Huttenlocher
-row pass) land here.
+``minplus_gpu``: the banded L2² row pass of the distance transform for
+NVIDIA GPUs (Triton route), chosen over XLA's forms by measurement
+(``scripts/bench_rowpass.py``, PERF.md).
 """

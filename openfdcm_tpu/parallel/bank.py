@@ -102,7 +102,6 @@ def match_many_bank_sharded(scenes, templates, params, searcher, optimizer,
     ``list[list[Match]]`` per scene, k best, ascending score.
     """
     from ..matching.pipeline import build_featuremap_batch
-    from ..matching.optimize_kernel import kernel_supported, cap_bucket
 
     n_bank = mesh.shape[bank_axis]
     n_sc = mesh.shape.get(scene_axis, 1)
@@ -146,7 +145,7 @@ def match_many_bank_sharded(scenes, templates, params, searcher, optimizer,
             [scenes[i] for i in pad_idx], [arrs[i] for i in pad_idx],
             searcher, optimizer, params, mesh, shards, lines_dev, mask_dev,
             tlen_dev, tau, top_k, pad_to, build_featuremap_batch,
-            kernel_supported, scene_axis, bank_axis, lmax, t_shard)
+            scene_axis, bank_axis, lmax, t_shard)
         for i, matches in zip(idx, res):
             out[i] = matches
     return out
@@ -154,8 +153,8 @@ def match_many_bank_sharded(scenes, templates, params, searcher, optimizer,
 
 def _dispatch_chunk(group, arrs, searcher, optimizer, params, mesh, shards,
                     lines_dev, mask_dev, tlen_dev, tau, top_k, pad_to,
-                    build_featuremap_batch, kernel_supported, scene_axis,
-                    bank_axis, lmax, t_shard):
+                    build_featuremap_batch, scene_axis, bank_axis, lmax,
+                    t_shard):
     s_count = len(group)
     n_bank = mesh.shape[bank_axis]
     fms = build_featuremap_batch(group, params, pad_to=pad_to)
@@ -180,30 +179,12 @@ def _dispatch_chunk(group, arrs, searcher, optimizer, params, mesh, shards,
 
     mode, window = opt.optimizer_mode(optimizer)
     dense_steps = opt.dense_step_count(optimizer, int(fs.max()))
-    use_kernel = kernel_supported(fms.dt3.shape, mode, mesh)
-    items_cap = None
-    if use_kernel:
-        counts = shards["counts"]
-        n_sc = mesh.shape.get(scene_axis, 1)
-        k_sh = max(s_count // n_sc, 1)
-        caps = []
-        for s0 in range(0, s_count, k_sh):
-            for b in range(n_bank):
-                # padded pair slots alias shard-local template 0 and emit
-                # kernel items like any other candidate — count them, or
-                # the capped item stream truncates REAL items (silently
-                # corrupting scores for the highest-sid scenes).
-                blk = pair_arr[s0: s0 + k_sh, b * pb: (b + 1) * pb]
-                caps.append(2 * int(counts[b * t_shard + blk[..., 0]].sum())
-                            + k_sh)
-        items_cap = cap_bucket(max(caps))
 
     fn = _bank_sharded_cached(
         mesh, scene_axis if scene_axis in mesh.axis_names else None,
         bank_axis,
         (("lmax", lmax), ("hw", (ph, pw)), ("mode", mode),
          ("window", max(window, 1)), ("dense_steps", dense_steps),
-         ("use_kernel", use_kernel), ("items_cap", items_cap),
          ("top_k", top_k), ("t_shard", t_shard), ("pb", pb)))
     sk, mk, tk, gk = fn(
         lines_dev, mask_dev, jnp.asarray(pair_arr[:, :, 0]),

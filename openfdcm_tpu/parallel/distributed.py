@@ -25,8 +25,9 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Initialize the multi-host runtime (``jax.distributed.initialize``).
 
-    On TPU pods all arguments are auto-detected from the environment; pass
-    them explicitly for manual (e.g. CPU-fleet) bring-up.
+    Where the cluster environment announces the job, arguments are
+    auto-detected; otherwise pass all three (coordinator ``host:port``,
+    process count, this process's id).
     """
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,

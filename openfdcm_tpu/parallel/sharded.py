@@ -3,7 +3,7 @@
 The reference is a single-process, thread-pool-parallel CPU library (its only
 parallel fan-outs are the per-angle DT build and the per-candidate optimize,
 reference ``dt3cpu.h:196-224`` and ``src/optimizestrategies/defaultoptimize.cpp:72-90``).
-The TPU-native scaling story replaces both with SPMD over a
+The accelerator scaling story replaces both with SPMD over a
 ``jax.sharding.Mesh``:
 
 * **candidate parallelism** (axis ``"cand"``): the aligned-template candidate

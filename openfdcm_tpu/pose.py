@@ -11,7 +11,8 @@ procedure is documented there:
    into the full 6-DOF pose — or, single-view, intersect with a known
    support plane.
 
-This module implements that stage TPU-first: per-view matching batches
+This module implements that stage for the accelerator: per-view matching
+batches
 through :func:`openfdcm_tpu.match_many` (one dispatch for all views), and
 the cross-view candidate voting — every (view-pair, candidate, candidate)
 triangulation plus reprojection scoring — runs as one jitted tensor
@@ -63,8 +64,9 @@ def _cam_arrays(cameras):
 def project_points(pts3d, k, r, t):
     """Project world points ``(..., 3)`` through ``(K, R, t)`` -> ``(..., 2)``
     pixels."""
-    cam = pts3d @ r.T + t
-    uvw = cam @ k.T
+    hi = jax.lax.Precision.HIGHEST
+    cam = jnp.matmul(pts3d, r.T, precision=hi) + t
+    uvw = jnp.matmul(cam, k.T, precision=hi)
     return uvw[..., :2] / jnp.maximum(uvw[..., 2:3], 1e-9)
 
 
@@ -83,11 +85,13 @@ def project_lines(lines3d, camera: Camera) -> np.ndarray:
 def backproject_rays(pix, k, r, t):
     """Pixels ``(..., 2)`` -> world rays ``(origin (3,), dirs (..., 3))``
     (directions unit-normalized)."""
+    hi = jax.lax.Precision.HIGHEST
     ones = jnp.ones(pix.shape[:-1] + (1,), pix.dtype)
-    d_cam = jnp.concatenate([pix, ones], axis=-1) @ jnp.linalg.inv(k).T
-    d_w = d_cam @ r                      # R^T @ d, batched
+    d_cam = jnp.matmul(jnp.concatenate([pix, ones], axis=-1),
+                       jnp.linalg.inv(k).T, precision=hi)
+    d_w = jnp.matmul(d_cam, r, precision=hi)     # R^T @ d, batched
     d_w = d_w / jnp.linalg.norm(d_w, axis=-1, keepdims=True)
-    origin = -r.T @ t
+    origin = -jnp.matmul(r.T, t, precision=hi)
     return origin, d_w
 
 
@@ -96,9 +100,10 @@ def intersect_plane(origin, dirs, plane):
     """Ray-plane intersection: ``plane`` = (nx, ny, nz, d) with
     ``n . x + d = 0``.  Returns ``(..., 3)`` world points (NaN where the ray
     is parallel)."""
+    hi = jax.lax.Precision.HIGHEST
     n, d = plane[:3], plane[3]
-    denom = dirs @ n
-    s = -(origin @ n + d) / jnp.where(jnp.abs(denom) < 1e-9, jnp.nan, denom)
+    denom = jnp.matmul(dirs, n, precision=hi)
+    s = -(jnp.matmul(origin, n, precision=hi) + d) / jnp.where(jnp.abs(denom) < 1e-9, jnp.nan, denom)
     return origin + s[..., None] * dirs
 
 
@@ -111,7 +116,8 @@ def triangulate(origins, dirs):
     proj = eye - dirs[..., :, None] * dirs[..., None, :]   # (V, ..., 3, 3)
     a = jnp.sum(proj, axis=0)
     o = origins.reshape((-1,) + (1,) * (dirs.ndim - 2) + (3,))
-    b = jnp.sum(jnp.einsum("v...ij,v...j->v...i", proj, o), axis=0)
+    b = jnp.sum(jnp.einsum("v...ij,v...j->v...i", proj, o,
+                           precision=jax.lax.Precision.HIGHEST), axis=0)
     return jnp.linalg.solve(a, b[..., None])[..., 0]
 
 

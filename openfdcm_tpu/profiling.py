@@ -54,3 +54,18 @@ def start_trace(log_dir: str) -> None:
 
 def stop_trace() -> None:
     jax.profiler.stop_trace()
+
+
+def card_info() -> str:
+    """The card's ``name, power.limit`` as ``nvidia-smi`` reports them
+    (``--query-gpu=name,power.limit --format=csv,noheader``), one line per
+    card, or ``"unavailable (...)"`` where there is no ``nvidia-smi``.
+    Times taken on a card are only comparable at the same power limit."""
+    import subprocess
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"unavailable ({type(e).__name__})"
+    return r.stdout.strip() or f"unavailable (rc {r.returncode})"

@@ -1,10 +1,10 @@
 """Production serving: a warm, bank-resident matcher with micro-batching.
 
-The reference is a library call per scene; production serving on TPU wants
-the opposite shape: ONE process owns the chip, keeps the template bank and
-compiled executables resident, and batches concurrent requests into
-scene-chunked dispatches (dispatch latency and compile reuse dominate
-throughput — see ROOFLINE.md).  :class:`MatcherService` provides that:
+The reference is a library call per scene; production serving on an
+accelerator wants the opposite shape: ONE process owns the device, keeps
+the template bank and compiled executables resident, and batches
+concurrent requests into scene-chunked dispatches (dispatch latency and
+compile reuse weigh on throughput).  :class:`MatcherService` provides that:
 
 - ``submit(scene) -> Future`` from any thread; a single dispatch thread
   collects requests for up to ``max_batch_delay_s`` (or until

@@ -1,7 +1,7 @@
 """Resumable large-bank sweeps: checkpointed chunked matching.
 
-BASELINE's fourth config is a 1M-template sweep — hours of chip time, where
-preemption (spot TPUs, pod maintenance) is the norm, and the reference's
+BASELINE's fourth config is a 1M-template sweep — hours of device time,
+where preemption (spot instances, maintenance) is the norm, and the reference's
 single-process in-RAM loop (``defaultmatch.cpp:32-89``) has no recovery
 story.  This module processes the bank in template chunks, folds each
 chunk's device-side top-k into a running per-scene best-k, and persists the

@@ -47,8 +47,8 @@ def main():
     depth = int(sys.argv[2]) if len(sys.argv) > 2 else 30
 
     import openfdcm_tpu as of
-    of.ensure_backend()
-    of.enable_compilation_cache("/root/repo/.jax_cache")
+    print(of.device_info(), file=sys.stderr)
+    of.enable_compilation_cache()
 
     templates = [of.read(p) for p in sorted(
         glob.glob(f"{ASSETS}/obj_01/templates/*.tmpl"))]

@@ -11,7 +11,8 @@ Protocol (driven by this script in one invocation):
   1. run the sweep in a subprocess, SIGKILL it after ``--kill-after`` s;
   2. re-invoke the sweep in-process — it resumes at the first unprocessed
      chunk (checkpoint in ``--state``) and runs to completion;
-  3. write ``SWEEP_1M.json`` with throughput + the kill/resume evidence.
+  3. write ``chiprun_out/SWEEP_1M.json`` with throughput + the kill/resume
+     evidence.
 
 Usage:
   python scripts/demo_sweep_1m.py [--n 1000000] [--depth 2] [--chunk 4096]
@@ -73,7 +74,7 @@ def run_sweep(args):
     import jax
     jax.config.update("jax_platforms", "cpu")   # demo is CPU-sized shapes
     import openfdcm_tpu as of
-    of.enable_compilation_cache("/root/repo/.jax_cache_cpu")
+    of.enable_compilation_cache()
 
     base = [of.read(p) for p in sorted(
         glob.glob(f"{ASSETS}/obj_01/templates/*.tmpl"))]
@@ -154,7 +155,10 @@ def main():
                 "multi-host sharding is exercised by bench_multihost.py",
     }
     print(json.dumps(rec))
-    with open("/root/repo/SWEEP_1M.json", "w") as f:
+    out = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chiprun_out", "SWEEP_1M.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
         json.dump(rec, f, indent=1)
 
 

@@ -21,7 +21,7 @@ reference's own test sources — ``math.test.cpp``, ``imgproc.test.cpp``,
 ``matchstrategy.test.cpp`` rotation/translation recovery), and (b) the
 independent NumPy oracle (``tests/oracle.py``) cross-checked in
 ``tests/test_oracle_parity.py``.  These goldens pin *cross-backend and
-cross-round stability* (TPU == CPU == last round), not reference output
+cross-round stability* (accelerator == CPU == last round), not reference output
 per se.  The same caveat is stated in BASELINE.md.
 
 Usage: python scripts/make_goldens.py [obj_01 obj_02 ...]
@@ -48,7 +48,7 @@ OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 
 def main():
     objs = sys.argv[1:] or ["obj_01", "obj_02", "obj_03", "obj_04"]
-    of.enable_compilation_cache("/root/repo/.jax_cache_cpu")
+    of.enable_compilation_cache()
 
     goldens = {}
     if os.path.exists(OUT):

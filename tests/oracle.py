@@ -95,9 +95,14 @@ def minmax_translation(tmpl: np.ndarray, align_vec: np.ndarray, size_wh,
     return float(neg_ax[1]), float(pos_ax[1])
 
 
-def default_optimize(dt3, angles, scene_tr, size_wh, tmpl, align_vec):
+def default_optimize(dt3, angles, scene_tr, size_wh, tmpl, align_vec,
+                     restart_negative: bool = False):
     """Reference DefaultOptimize walk (``defaultoptimize.cpp:15-69``).
 
+    ``restart_negative``: IndulgentOptimize (``indulgentoptimize.cpp``),
+    whose negative walk compares its first step with the initial score
+    rather than the positive walk's last kept one (the reference re-seeds
+    its score chain before the negative loop, ``:56-58``).
     Returns ``None`` or ``(score, translation, n_evals)``.
     """
     if np.isclose(np.abs(np.asarray(align_vec, F32)).sum(), 0.0, atol=1.1920929e-07):
@@ -117,12 +122,14 @@ def default_optimize(dt3, angles, scene_tr, size_wh, tmpl, align_vec):
             break
         translations.append(tr)
         scores.append(s)
+    last = scores[0] if restart_negative else scores[-1]
     for mul in range(-1, int(min_mul) - 1, -1):
         tr = F32(mul) * rast
         s = evaluate(dt3, angles, scene_tr, tmpl, [tr])[0]
         n += 1
-        if s > scores[-1]:
+        if s > last:
             break
+        last = s
         translations.append(tr)
         scores.append(s)
     best = int(np.argmin(scores))

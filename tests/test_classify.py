@@ -1,11 +1,11 @@
 """Backend-invariant orientation classification (r4 golden regression).
 
-The r4 bench drift (obj_02/scene_3 tmpl-74: TPU score 0.195048 vs CPU
-golden 0.197035, BENCH_r04.json) came from classifying candidate lines via
-``atan(dy/dx)``: XLA:CPU and XLA:TPU atan approximations disagree by up to
+An r4 bench drift (obj_02/scene_3 tmpl-74: accelerator score 0.195048 vs
+CPU golden 0.197035) came from classifying candidate lines via
+``atan(dy/dx)``: two XLA backends' atan approximations disagree by up to
 ~2e-5 rad, which flips nearest-angle classification for lines within that
-window of a slice midpoint (the offending line classified 20 on CPU, 19 on
-TPU).  ``classify_lines`` now compares the raw ratio ``dy/dx`` against a
+window of a slice midpoint (the offending line classified 20 on the CPU, 19
+on the accelerator).  ``classify_lines`` now compares the raw ratio ``dy/dx`` against a
 host-precomputed f32 threshold table (``orientation_ratio_splits``) — only
 IEEE-exact ops on device, so every backend is bit-identical to the numpy
 oracle semantics (``tests/oracle.py:16-27`` / reference ``dt3cpu.h:93-114``).

@@ -184,3 +184,36 @@ def test_match_many_devpairs_scene_mesh_small():
             rtol=1e-5, atol=1e-7)
         assert sorted((round(m.score, 5), m.tmpl_idx) for m in h) == \
             sorted((round(m.score, 5), m.tmpl_idx) for m in d)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_device_pairs_bitexact_large_scene_near_ties(seed):
+    """More than 2048 scene lines (indices a matmul-expressed gather could
+    round) and lengths one ulp apart (what a rounded ``closer`` compare
+    would confuse): the device grid must still equal ``bank_pairs``."""
+    rng = np.random.default_rng(100 + seed)
+    n = 2500
+    base = rng.choice(np.float32([10.0, 17.5, 24.25, 31.0]), n)
+    ulps = rng.integers(-2, 3, n)
+    slen = np.nextafter(base, np.where(ulps < 0, -np.inf, np.inf)
+                        ).astype(np.float32)
+    slen = np.where(ulps == 0, base, slen).astype(np.float32)
+    ang = rng.uniform(0, np.pi, n)
+    scene = np.zeros((n, 4), np.float32)
+    scene[:, 2] = slen * np.cos(ang)
+    scene[:, 3] = slen * np.sin(ang)
+    t_count, lmax = 20, 6
+    counts = rng.integers(1, lmax + 1, t_count)
+    lens = rng.choice(np.float32([10.0, 17.5, 24.25, 31.0, 5.0]),
+                      (t_count, lmax)).astype(np.float32)
+    strat = DefaultSearch(4, 10)
+
+    host = bank_pairs(strat, lens, counts.astype(np.int64), scene)
+    ord_t, top_vals, rank_ok = _tables(lens, counts, strat.max_tmpl_lines)
+    slen_h, valid = scene_length_mask(scene, 2560)
+    sl, wok = jax.jit(device_pairs, static_argnums=(4,))(
+        jnp.asarray(slen_h), jnp.asarray(valid), jnp.asarray(top_vals),
+        jnp.asarray(rank_ok), 10)
+    dev = _grid_to_packed(np.asarray(sl), np.asarray(wok), ord_t, 10)
+    assert host.shape[0] > 0 and host[:, 2].max() > 2048
+    np.testing.assert_array_equal(dev, host)

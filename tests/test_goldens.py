@@ -48,7 +48,7 @@ def _run_object(obj):
 def test_obj02_bench_bucket_goldens():
     """Default-lane regression guard for the r4 golden drift (VERDICT r5
     #6): obj_02 scenes 3/6/9 — including the scene whose tmpl-74 match
-    drifted 1% on TPU in r4 — run in the BENCH configuration (the shared
+    drifted 1% on an accelerator in r4 — run in the BENCH configuration (the shared
     (lmax, count) bucket over all four objects, bench.py protocol()), so
     the default lane exercises the exact padded shapes the hardware bench
     uses, not just per-object buckets."""

@@ -177,47 +177,6 @@ def test_device_topk_with_pair_chunking_small(monkeypatch):
                                        rtol=1e-6, atol=1e-5)
 
 
-def test_genpairs_items_cap_matches_uncapped(monkeypatch):
-    """ADVICE r3 #2: the exact per-scene items_cap of the genpairs kernel
-    path must never trim real items.  Runs the devpairs+kernel path
-    (Pallas interpreter) twice — once with the pipeline's exact cap, once
-    with the cap disabled — and requires identical rankings, scores, and
-    transforms."""
-    from openfdcm_tpu.matching import optimize_kernel as ok
-    from openfdcm_tpu.ops import window_kernel as wk
-    monkeypatch.setattr(wk, "INTERPRET", True)
-    monkeypatch.setenv("OPENFDCM_TPU_KERNEL", "1")
-    monkeypatch.setenv("OPENFDCM_TPU_DEVPAIRS", "1")
-
-    rng = np.random.default_rng(5)
-    templates = []
-    for n in (3, 5):
-        t = np.zeros((n, 4), np.float32)
-        t[:, 0:2] = rng.uniform(0, 30, (n, 2))
-        t[:, 2:4] = t[:, 0:2] + rng.uniform(3, 14, (n, 2))
-        templates.append(t)
-    scenes = [templates[1] + np.float32(5.0)]
-    params = of.Dt3Params(3, 5.0, 2.0, of.Distance.L2)
-    bank = of.prepare_templates(templates)
-    lengths = of.get_template_lengths(templates)
-    kw = dict(penalty=of.ExponentialPenalty(1.5), template_lengths=lengths,
-              top_k=6, pad_to=256)
-
-    def run():
-        return of.match_many(scenes, bank, params, of.DefaultSearch(3, 4),
-                             of.BatchOptimize(5), **kw)
-
-    capped = run()
-    monkeypatch.setattr(ok, "cap_bucket", lambda n: None)
-    uncapped = run()
-    for a_list, b_list in zip(capped, uncapped):
-        assert len(a_list) == len(b_list) > 0
-        for a, b in zip(a_list, b_list):
-            assert a.tmpl_idx == b.tmpl_idx
-            assert a.score == b.score
-            np.testing.assert_array_equal(a.transform, b.transform)
-
-
 def test_match_many_async_equals_sync():
     """match_many_async must dispatch everything up front and produce
     byte-identical results to match_many (same args)."""
